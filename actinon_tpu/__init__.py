@@ -1,16 +1,16 @@
-"""actinon-tpu: a TPU-native differentiable CSG path-tracing framework.
+"""actinon_tpu: a differentiable CSG path tracer in JAX.
 
-A from-scratch re-design of the capabilities of johsteffens/actinon
-(reference: /root/reference) for TPU hardware:
+A from-scratch re-design of the capabilities of johsteffens/actinon, a
+C scene-scripting language and multi-threaded CPU ray/path tracer:
 
   * the Actinon scene-scripting language (`.acn`) is interpreted by a pure
     Python front-end (`actinon_tpu.acn`) that builds scenes,
   * scenes compile to a flat array IR (`actinon_tpu.scene`),
-  * rendering runs as jit-compiled wavefront kernels over ray batches
-    (`actinon_tpu.ops`, `actinon_tpu.render`), sharded over a
-    `jax.sharding.Mesh` for multi-chip scale-out (`actinon_tpu.parallel`),
-  * the whole pipeline is differentiable w.r.t. material parameters
-    (`actinon_tpu.diff`).
+  * rendering runs as a jit-compiled, device-resident wavefront drain
+    over ray batches (`actinon_tpu.render`), sharded over a
+    `jax.sharding.Mesh` for multi-device scale-out (`actinon_tpu.parallel`),
+  * the pipeline is differentiable w.r.t. material and geometry
+    parameters (`actinon_tpu.render.diff`).
 
 Reference parity map: see SURVEY.md section 2 and the docstrings of each
 module (they cite reference file:line).
@@ -20,10 +20,10 @@ import jax as _jax
 
 # All dot/einsum contractions in this framework are tiny 3-vector /
 # material-table reductions whose accuracy is load-bearing (shadow and
-# hit decisions are discontinuous in the operands).  The TPU default
-# lowers f32 einsum to bf16 MXU passes (~1e-2 relative error), which
-# made the XLA NEE path disagree with the exact-f32 Pallas kernels on
-# 28% of rays (round-3 verdict; measured in tools/diag_tpu_ops.py).
+# hit decisions are discontinuous in the operands).  On NVIDIA GPUs
+# XLA may run float32 contractions in TF32 (about three decimal
+# digits) unless asked for full precision; "highest" keeps every f32
+# product in f32.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from actinon_tpu.config import RenderConfig, FType, default_ftype

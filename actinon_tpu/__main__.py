@@ -7,7 +7,7 @@ like the reference, `-f` is also forwarded to the script,
 reference src/main.c:100-105.)
 
 Framework extensions (not in the reference):
-  --dtype f32|f64     compute dtype (default f32; TPU-native)
+  --dtype f32|f64     compute dtype (default f32)
   --batch N           wavefront batch size
   --platform cpu|...  force a JAX platform
 """
@@ -64,8 +64,11 @@ def main(argv=None):
         print("usage: python -m actinon_tpu <script.acn> [-f] [-r]")
         return 1
 
+    from actinon_tpu import compile_cache
     from actinon_tpu.acn.interp import run_file
     from actinon_tpu.render.driver import render_scene
+
+    compile_cache.enable()
 
     def render_fn(scene, fname):
         render_scene(scene, fname, force=force, recover=recover,

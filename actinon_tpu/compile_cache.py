@@ -1,56 +1,39 @@
 """Persistent XLA compilation cache.
 
-Composite-heavy scenes (hanging_lamp: 117 CSG composites) produce large
-HLO modules whose first compile is expensive, especially on the CPU
-backend used by tests and the golden-corpus oracle.  The persistent
-cache makes every compile after the first instant across processes —
-the standard production setup for TPU fleets.
+Composite-heavy scenes (hanging_lamp: many CSG composites) produce large
+HLO modules whose first compile is expensive.  The persistent cache
+makes every compile after the first a lookup across processes.
 
-Call enable() from entry points (bench, CLI, tests, golden_gen).  Set
-ACTINON_NO_COMPILE_CACHE=1 to opt out (e.g. when measuring cold-compile
-time itself).
+The directory is `JAX_COMPILATION_CACHE_DIR` when that is set (JAX reads
+it itself; nothing here overrides it), else the fixed `.jax_cache/` at
+the root of the checkout.  The path is part of what makes a later
+process find an entry, so it never depends on the host.
+
+Call enable() from entry points (CLI, bench, chip smoke, tests,
+golden_gen).  Set ACTINON_NO_COMPILE_CACHE=1 to opt out (e.g. when
+measuring cold-compile time itself).
 """
 
-import hashlib
 import os
-import platform
 
 _DEFAULT_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), ".jax_cache")
 
 
-def _machine_tag() -> str:
-    """Fingerprint of the host CPU feature set.  XLA:CPU AOT executables
-    record the compile machine's features and SIGILL-crash when loaded
-    on a host missing any (observed: a cache populated on a previous
-    round's VM hard-crashed this round's pytest run with
-    'Target machine feature +prefer-no-scatter is not supported').
-    Keying the cache dir by the feature set makes stale entries
-    invisible instead of fatal."""
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if line.startswith("flags"):
-                    feats = " ".join(sorted(line.split(":", 1)[1].split()))
-                    break
-            else:
-                feats = ""
-    except OSError:
-        feats = ""
-    h = hashlib.sha1((platform.machine() + feats).encode()).hexdigest()
-    return h[:12]
+def cache_dir() -> str:
+    """The directory the persistent cache uses off the CPU."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or _DEFAULT_DIR
 
 
 def _patch_atomic_writes() -> None:
     """Make jax's persistent-cache writes atomic (temp + rename).
 
     jax's LRUCache.put writes entries with a plain write_bytes; a
-    process killed mid-write (timeouts are routine here) leaves a
-    TRUNCATED entry, and XLA's executable deserializer segfaults on it —
-    observed as a reproducible pytest SIGSEGV inside
-    compilation_cache.get_executable_and_time until the entry was
-    deleted.  os.replace on the same filesystem is atomic, so readers
-    only ever see complete entries."""
+    process killed mid-write leaves a TRUNCATED entry, and XLA's
+    executable deserializer segfaults on it (observed as a reproducible
+    SIGSEGV inside compilation_cache.get_executable_and_time until the
+    entry was deleted).  os.replace on the same filesystem is atomic, so
+    readers only ever see complete entries."""
     try:
         from jax._src.lru_cache import LRUCache
     except ImportError:
@@ -79,9 +62,7 @@ def _patch_atomic_writes() -> None:
     LRUCache._actinon_atomic = True
 
 
-def enable(cache_dir: str = None) -> None:
-    if os.environ.get("ACTINON_NO_COMPILE_CACHE"):
-        return
+def enable() -> None:
     import jax
 
     # XLA:CPU AOT executables do not reliably survive the persistent
@@ -90,20 +71,19 @@ def enable(cache_dir: str = None) -> None:
     # machine ... could lead to execution errors such as SIGILL') even
     # for entries written on the SAME host, and pytest runs segfaulted
     # inside compilation_cache.get_executable_and_time with fully intact
-    # (zstd-complete) entries.  CPU compiles are a bounded cost; cache
-    # only the expensive TPU compiles.  ACTINON_FORCE_COMPILE_CACHE=1
-    # overrides (e.g. to reproduce the failure).
-    if jax.default_backend() == "cpu" \
-            and not os.environ.get("ACTINON_FORCE_COMPILE_CACHE"):
+    # entries.  CPU compiles are a bounded cost; cache only the
+    # accelerator's compiles.
+    if os.environ.get("ACTINON_NO_COMPILE_CACHE") \
+            or jax.default_backend() == "cpu":
+        jax.config.update("jax_enable_compilation_cache", False)
         return
 
     _patch_atomic_writes()
-    path = cache_dir or os.environ.get("ACTINON_COMPILE_CACHE",
-                                       _DEFAULT_DIR)
-    path = os.path.join(path, _machine_tag())
+    path = cache_dir()
     os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
-    # cache everything that took XLA real effort; tiny kernels recompile
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", path)
+    # cache everything that took XLA real effort; tiny programs recompile
     # faster than they (de)serialize
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)

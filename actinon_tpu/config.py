@@ -1,10 +1,10 @@
 """Global numeric policy and the render configuration record.
 
 The reference computes everything in f64 (`f3_t`, reference src/vectors.h:30-33)
-with a hard-coded surface-shell epsilon of 1e-6.  On TPU the native fast dtype
-is f32, so the epsilon scales with the dtype: the shell just has to be a few
-ulps at scene scale.  Tests run on CPU in f64 for maximum parity with the
-reference math; benchmarks run on TPU in f32.
+with a hard-coded surface-shell epsilon of 1e-6.  On the accelerator the fast
+dtype is f32, so the epsilon scales with the dtype: the shell just has to be a
+few ulps at scene scale.  Tests run on CPU in f64 for maximum parity with the
+reference math; the GPU renders in f32.
 
 `RenderConfig` mirrors the `scene_s` reflective config record and its default
 values (reference src/scene.c:185-213) so that reference `.acn` scenes assign
@@ -51,7 +51,7 @@ class FType:
 
 
 def default_ftype() -> FType:
-    """f64 when jax x64 is on (CPU test mode), else f32 (TPU mode)."""
+    """f64 when jax x64 is on (CPU test mode), else f32."""
     if os.environ.get("ACTINON_FORCE_F32"):
         return FType.f32()
     return FType.f64() if _x64_enabled() else FType.f32()
@@ -63,8 +63,8 @@ class RenderConfig:
 
     Field names and defaults mirror `scene_s` (reference src/scene.c:185-213)
     so `.acn` scripts configure it by name.  `threads` is kept for script
-    compatibility; on TPU it only influences nothing (parallelism comes from
-    the device mesh and batch size).
+    compatibility and influences nothing (parallelism comes from the device
+    mesh and batch size).
     """
 
     threads: int = 10

@@ -1,11 +1,11 @@
 """Batched 3-vector / 3x3-matrix algebra over jnp arrays.
 
-TPU-native counterpart of the reference's inline vector layer
+Vectorized counterpart of the reference's inline vector layer
 (reference src/vectors.h:53-332).  All functions operate on arrays whose last
 axis is the vector axis (shape ``[..., 3]``) or the matrix axes
 (``[..., 3, 3]``, row convention: ``mlv(M, v) == M @ v``), broadcast over any
-leading batch shape.  Everything is dtype-polymorphic (f32 on TPU, f64 in CPU
-test mode).
+leading batch shape.  Everything is dtype-polymorphic (f32 on the accelerator, f64
+in CPU test mode).
 """
 
 from __future__ import annotations
@@ -167,13 +167,24 @@ def ray_pos(p, d, offs):
 # sphere sampling (Archimedes cap/belt, reference src/vectors.h:192-218)
 
 
+def safe_sqrt(x):
+    """sqrt(max(x, 0)) with a zero (sub)gradient where x <= 0: under
+    reverse-mode AD the `where`-selected-out branch still back-propagates
+    1/(2*sqrt(0)) = inf, and 0 * inf = NaN poisons the whole gradient.
+    Masking the *input* kills the inf at its source.  (In f32 a cap whose
+    height is below the float spacing, a small light seen from far away,
+    gives z == 1 exactly in the samplers below.)"""
+    pos = x > 0
+    return jnp.where(pos, jnp.sqrt(jnp.where(pos, x, 1.0)), 0.0)
+
+
 def sphere_cap_sample(u_phi, u_z, h):
     """Uniform direction on a spherical cap of height h around +z.
     u_phi, u_z are uniforms in [0,1); h broadcastable.
     (v3d_s_random_sphere_cap, reference src/vectors.h:197-206)."""
     phi = (2.0 * jnp.pi) * u_phi
     z = 1.0 - u_z * h
-    scale = jnp.sqrt(jnp.maximum(1.0 - z * z, 0.0))
+    scale = safe_sqrt(1.0 - z * z)
     return jnp.stack([jnp.sin(phi) * scale, jnp.cos(phi) * scale, z], axis=-1)
 
 
@@ -183,7 +194,7 @@ def sphere_belt_sample(u_phi, u_z, h):
     u_z in [0,1) maps to z in (-h, h)."""
     phi = (2.0 * jnp.pi) * u_phi
     z = (2.0 * u_z - 1.0) * h
-    scale = jnp.sqrt(jnp.maximum(1.0 - z * z, 0.0))
+    scale = safe_sqrt(1.0 - z * z)
     return jnp.stack([jnp.sin(phi) * scale, jnp.cos(phi) * scale, z], axis=-1)
 
 

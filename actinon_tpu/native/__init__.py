@@ -1,7 +1,8 @@
 """Native host runtime kernels (C, ctypes-bound).
 
 Compiled on first import with the system compiler into a cached shared
-object next to the source.  Import raises ImportError if no compiler is
+object next to the source (`_core.so`, a build output that is not kept
+in version control).  Import raises ImportError if no compiler is
 available; callers fall back to pure-Python paths.
 """
 
@@ -19,8 +20,16 @@ _SO = os.path.join(_DIR, "_core.so")
 
 
 def _build():
-    cmd = ["cc", "-O3", "-shared", "-fPIC", "-o", _SO, _SRC]
-    subprocess.run(cmd, check=True, capture_output=True)
+    # build under a per-process name and rename into place: concurrent
+    # importers (test workers) never load a half-written library
+    tmp = f"{_SO}.{os.getpid()}.tmp"
+    cmd = ["cc", "-O3", "-shared", "-fPIC", "-o", tmp, _SRC]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, _SO)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _load():

@@ -1,6 +1,6 @@
 /* Native host-side runtime kernels.
  *
- * The TPU owns the compute path (JAX/XLA); these are the host-sequential
+ * The device owns the compute path (JAX/XLA); these are the host-sequential
  * pieces where Python is the wrong tool:
  *   - fnv_fold:        the per-pass image regression hash (an xor-multiply
  *                      chain, inherently sequential; counterpart of

@@ -3,7 +3,7 @@
 Parallelism model (SURVEY.md section 2.12): the reference's only
 parallel axis is pixel-samples over a pthread pool
 (reference src/scene.c:906-1028) plus frame-sharding over a shared
-filesystem for animations.  The TPU-native equivalent is **data
+filesystem for animations.  The device-mesh equivalent is **data
 parallelism over the ray/sample batch** on a 1-D mesh axis `rays`:
 
   * the production device-resident drain (integrator._drain) runs as the
@@ -44,8 +44,9 @@ from actinon_tpu.render.integrator import Integrator
 def make_mesh(n_devices: Optional[int] = None) -> Mesh:
     """1-D `rays` mesh over the GLOBAL device list — in a multi-process
     (multi-host) run jax.devices() spans all hosts, so the same mesh
-    shards samples across hosts over DCN and across a host's chips over
-    ICI (SURVEY.md section 2.12)."""
+    shards samples across hosts and across a host's devices (SURVEY.md
+    section 2.12).  A 1-D mesh suits devices joined all to all, as the
+    cards of one NVLink host are."""
     devs = jax.devices()
     n = len(devs) if n_devices is None else n_devices
     return Mesh(np.array(devs[:n]), ("rays",))

@@ -12,7 +12,7 @@ backward pass over it: per-pixel radiance as a differentiable function of
     CSG composites), via implicit-function differentiation, which is free
     here because every hit distance is in closed form.
 
-Design constraints on TPU/XLA:
+Design constraints under XLA:
 
   * The production wavefront drain (integrator.run_device) compacts
     queues inside a `lax.while_loop`, which has no reverse-mode rule.

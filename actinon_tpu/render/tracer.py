@@ -1,6 +1,6 @@
 """Vectorized ray-scene intersection over the compiled Scene IR.
 
-TPU-native replacement for the reference hit stack
+Array-programming replacement for the reference hit stack
 (compound_s_ray_hit / compound_s_ray_trans_hit -> obj_ray_hit -> per-type
 vtable hits, reference src/compound.c:215-299, src/objects.c:245-310).
 
@@ -12,7 +12,7 @@ quadric — is ONE ROW of a unified *generalized quadric* table
 (plane: c2=0, c1=n, r=k; sphere: M=I, m0=-c, c2=1, r=-R^2; quadric as
 compiled by the IR).  A scene traversal is then
 
-  * two small matmuls  pl = p @ M^T + m0, dl = d @ M^T  (MXU work),
+  * two small affine maps  pl = p @ M^T + m0, dl = d @ M^T,
   * one fused elementwise block producing both roots of
     A t^2 + B t + C = 0 for ALL leaves at once ([R, L] arrays),
   * per-family root policies applied as static masks
@@ -57,6 +57,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+from actinon_tpu.math3d import safe_sqrt
 from actinon_tpu.scene import ir as sir
 
 INF = jnp.inf
@@ -78,8 +79,8 @@ def _env_clip_marches():
     """Envelope-clipped SDF marches apply off-CPU only: a march started
     at the envelope entry converges to a crossing offset that differs
     from the origin-started march at O(eps), and the CPU golden corpus
-    pins the origin-started behavior bit-exactly.  (The clip is the TPU
-    production-path analog of the reference's envelope early-outs,
+    pins the origin-started behavior bit-exactly.  (The clip is the
+    accelerator path's analog of the reference's envelope early-outs,
     obj_ray_hit src/objects.c:261-284.)"""
     import jax as _jax
     return _jax.default_backend() != "cpu"
@@ -111,15 +112,6 @@ def _dot(a, b):
     return jnp.sum(a * b, axis=-1)
 
 
-def safe_sqrt(x):
-    """sqrt with a zero (sub)gradient at x <= 0: under reverse-mode AD the
-    `where`-selected-out branch still back-propagates 1/(2*sqrt(0)) = inf,
-    and 0 * inf = NaN poisons the whole gradient.  Masking the *input*
-    kills the inf at its source."""
-    pos = x > 0
-    return jnp.where(pos, jnp.sqrt(jnp.where(pos, x, 1.0)), 0.0)
-
-
 def safe_acos(x):
     """arccos with clamped input and finite gradient at |x| >= 1."""
     inside = jnp.abs(x) < 1.0
@@ -139,11 +131,18 @@ def safe_asin(x):
 def _sphere_first_hit(c, r, p, d, eps):
     """Reference sphere_ray_hit semantics (src/gmath.h:64-85): entry root
     when outside+approaching, exit root when inside or behind-center.
-    Used by the integrator's NEE light intersection."""
+    Used by the integrator's NEE light intersection.
+
+    The discriminant s^2 - q is formed as r^2 - |pp - s d|^2 (unit d):
+    for a light far from the shading point, s^2 and q agree in every f32
+    digit, and the cancelling form put the hit at the light's CENTER
+    (observed at distance ~5000 with fused multiply-adds), where the
+    radiance falloff divides by zero."""
     pp = p - c
     s = _dot(pp, d)
     q = _dot(pp, pp) - r * r
-    disc = s * s - q
+    perp = pp - s[..., None] * d
+    disc = r * r - _dot(perp, perp)
     ok = disc >= 0
     root = safe_sqrt(jnp.where(ok, disc, 0.0))
     entering = (s < 0) & (q > 0)
@@ -168,8 +167,8 @@ def _sdf_eval(kind, param, pos):
 
 def _take_cols(a, idx):
     """a[r, idx[r, k]] — unrolled compare+select for small static K
-    (TPU gathers run at ~4 GB/s; K fused selects at full VPU bandwidth);
-    one take_along_axis for wide K (composite-heavy scenes), where the
+    (K selects fuse into the surrounding elementwise code); one
+    take_along_axis for wide K (composite-heavy scenes), where the
     unroll would bloat the HLO module and XLA compile time."""
     K = a.shape[1]
     if K > 32:
@@ -183,8 +182,8 @@ def _take_cols(a, idx):
 def _top2_cols(a):
     """Smallest and second-smallest over the last axis of a [R, K] array
     (K >= 1 static).  Returns (vals [R,2], idx [R,2]); missing columns are
-    (INF, 0).  Two argmin passes — NOT lax.top_k, which lowers to a full
-    sort on TPU and is an order of magnitude slower."""
+    (INF, 0).  Two argmin passes — two fused reductions instead of a
+    lax.top_k sort."""
     R, K = a.shape
     i1 = jnp.argmin(a, axis=1).astype(jnp.int32)
     t1 = jnp.min(a, axis=1)
@@ -600,26 +599,6 @@ class Tracer:
         # static chunk partition of the single-leaf candidate rows
         self.single_rows = np.flatnonzero(tab.single).astype(np.int32)
 
-        # big-scene kernel coverage: single-leaf matter SPHERES whose
-        # envelope is absent or encloses the sphere (the gate is then
-        # semantically redundant) — candidates for the table-driven
-        # Morton-block traversal kernel (pallas_bigscene.py) when the
-        # population is large enough to swamp the chunked XLA path
-        sph = (tab.kind == sir.SPHERE) & tab.single & ~tab.is_light
-        if sph.any():
-            c = -tab.m0
-            r = np.sqrt(np.maximum(-tab.rr, 0.0))
-            off = np.linalg.norm(tab.env_c - c, axis=-1)
-            env_ok = (tab.env_r <= 0) \
-                | (off + r <= tab.env_r * (1 + 1e-6) + 1e-9)
-            self.big_rows = np.flatnonzero(sph & env_ok).astype(np.int32)
-        else:
-            self.big_rows = np.zeros((0,), np.int32)
-        self._big = None
-        self.use_bigscene_interpret = False   # tests force interpret mode
-        self._scene_k = None
-        self.use_scene_interpret = False      # tests force interpret mode
-
         # jitted entry points for direct (non-integrator) use; the
         # integrator calls the raw methods inside its own jit instead
         self.nearest_jit = jax.jit(
@@ -731,9 +710,9 @@ class Tracer:
         Returns (A, B, C, pl, dl) with pl/dl [R, c, 3]; the C coefficient
         equals side(p), giving origin inside-ness for free.
 
-        precision=HIGHEST: TPU einsum otherwise drops to bf16 inputs,
-        which corrupts the eps-shell root math (rays re-hit the surface
-        they just left and the wavefront explodes with bogus children)."""
+        precision=HIGHEST: a reduced-precision contraction corrupts the
+        eps-shell root math (rays re-hit the surface they just left and
+        the wavefront explodes with bogus children)."""
         M, m0, c2, c1, rr = tabs
         Mr = M[rows]                                # [c,3,3]
         import jax as _jax
@@ -747,15 +726,12 @@ class Tracer:
                             precision=hi) + m0[rows][None]
             dl = jnp.einsum("rj,lij->rli", d, Mr, precision=hi)
         else:
-            # f32 production path: pl/dl as UNROLLED elementwise
-            # broadcasts, not einsum — a TPU dot materializes its
-            # [R,c,3] output to HBM (matmuls end fusion clusters), which
-            # made the singles traversal HBM-bound on many-leaf scenes
-            # (many_spheres: ~1.4k leaves, round-3 verdict #5).  Three
-            # broadcast multiply-adds fuse straight into the A/B/C
-            # reductions, so the [R,c,3] frames never exist in memory;
-            # plain VPU arithmetic is exact f32 by construction (the
-            # einsum needed precision=HIGHEST for that).
+            # f32 accelerator path: pl/dl as UNROLLED elementwise
+            # broadcasts, not einsum.  Three broadcast multiply-adds
+            # fuse straight into the A/B/C reductions, so the [R,c,3]
+            # frames need not exist in memory, and plain elementwise
+            # arithmetic is exact f32 by construction (the einsum needs
+            # precision=HIGHEST for that).
             pl = (p[:, None, None, 0] * Mr[None, :, :, 0]
                   + p[:, None, None, 1] * Mr[None, :, :, 1]
                   + p[:, None, None, 2] * Mr[None, :, :, 2]) \
@@ -1139,25 +1115,18 @@ class Tracer:
         bodies; an unrolled trace of that scene exceeded 8e5 jaxpr eqns
         and hours of XLA compile)."""
         if not hasattr(self, "_solo_cl"):
-            self._solo_cl = self._shape_clusters(self.comp_solo)
+            clusters: Dict = {}
+            for comp in self.comp_solo:
+                key = (repr(comp.tree),
+                       tuple(r >= 0 for r in comp.rows),
+                       tuple(None if lf is None else
+                             (lf.sdf_kind, int(lf.cycles), bool(lf.neg))
+                             for lf in comp.sdf_leaves),
+                       comp.env_c is not None and comp.env_r > 0,
+                       comp.is_light)
+                clusters.setdefault(key, []).append(comp)
+            self._solo_cl = list(clusters.values())
         return self._solo_cl
-
-    @staticmethod
-    def _shape_clusters(comps):
-        """Group arbitrary composites by shape identity (the cluster key
-        of _solo_clusters); also used by the Pallas shadow branch for its
-        kernel-excluded `rest` composites."""
-        clusters: Dict = {}
-        for comp in comps:
-            key = (repr(comp.tree),
-                   tuple(r >= 0 for r in comp.rows),
-                   tuple(None if lf is None else
-                         (lf.sdf_kind, int(lf.cycles), bool(lf.neg))
-                         for lf in comp.sdf_leaves),
-                   comp.env_c is not None and comp.env_r > 0,
-                   comp.is_light)
-            clusters.setdefault(key, []).append(comp)
-        return list(clusters.values())
 
     def _cluster_stacks(self, cluster):
         """Stacked per-member parameter arrays (leading axis = member)
@@ -1543,8 +1512,8 @@ class Tracer:
 
         Per-leaf parities at every candidate t_j come from ONE
         pairwise-order contraction count[r,g,j,l] = sum_c
-        [t_c {<=,<} t_j] . onehot[c,l] (matmul-shaped — MXU work on TPU,
-        ~15 HLO ops per ray chunk regardless of leaf count, which keeps
+        [t_c {<=,<} t_j] . onehot[c,l] (matmul-shaped: ~15 HLO ops
+        per ray chunk regardless of leaf count, which keeps
         XLA compile time flat where per-column emission was O(NC^2) and
         cumsum/sort formulations were gather-heavy).  Ties of equal t
         flip jointly via the <=/< pair.  Returns (hit_t [R, G] raw,
@@ -1629,149 +1598,7 @@ class Tracer:
 
     # -- core query --------------------------------------------------------
 
-    # -- big-scene table-driven kernel (pallas_bigscene.py) ------------------
-
-    BIG_MIN_ROWS = 512
-
-    def _bigscene_ok(self):
-        """The table-driven Morton-block kernel applies: large
-        sphere-single population, plain forward path (no traced
-        overrides / AD), TPU backend (or interpret mode under test)."""
-        if len(self.big_rows) < self.BIG_MIN_ROWS:
-            return False
-        if self.dtype != np.float32:
-            return False
-        if self.ovr or self.diff or not getattr(self, "use_pallas", True):
-            return False
-        if self.use_bigscene_interpret:
-            return True
-        import jax as _jax
-        return _jax.default_backend() != "cpu"
-
-    def _bigscene(self):
-        """Lazy (blocks, top2_fn, anyhit_fn, rows_padded)."""
-        if self._big is None:
-            from actinon_tpu.render import pallas_bigscene as pb
-            tab = self.tab
-            rows = self.big_rows
-            centers = -tab.m0[rows]
-            radii = np.sqrt(np.maximum(-tab.rr[rows], 0.0))
-            blocks = pb.SphereBlocks(rows, centers, radii,
-                                     float(self.eps))
-            interp = self.use_bigscene_interpret
-            rows_padded = np.zeros(blocks.G * pb.LB, np.int32)
-            rows_padded[:blocks.n] = blocks.rows
-            # rows_padded stays NUMPY: a jnp constant created while the
-            # first caller is inside a jit trace would be a leaked tracer
-            self._big = (blocks,
-                         pb.build_top2_kernel(blocks, interpret=interp),
-                         pb.build_anyhit_kernel(blocks,
-                                                interpret=interp),
-                         rows_padded)
-        return self._big
-
-    # -- table-driven scene kernel (pallas_scene.py) -------------------------
-
-    def _scene_ok(self):
-        """The packed members-on-lanes traversal kernel applies: plain
-        f32 forward path (no traced overrides / AD), TPU backend (or
-        interpret mode under test)."""
-        if self.dtype != np.float32:
-            return False
-        if self.ovr or self.diff or not getattr(self, "use_pallas", True):
-            return False
-        if self.use_scene_interpret:
-            return True
-        import jax as _jax
-        return _jax.default_backend() != "cpu"
-
-    def _scene_kernels(self):
-        """Lazy (full_table, matter_table, top2_fn, anyhit_fn)."""
-        if self._scene_k is None:
-            from actinon_tpu.render import pallas_scene as ps
-            exclude = self.big_rows if self._bigscene_ok() else None
-            stf = ps.SceneTable(self, matter_only=False,
-                                exclude_rows=exclude)
-            stm = ps.SceneTable(self, matter_only=True,
-                                exclude_rows=exclude)
-            interp = self.use_scene_interpret
-            top2 = anyhit = None
-            if stf.shapes:
-                top2, _ = ps.build_kernels(stf, interpret=interp)
-            if stm.shapes:
-                _, anyhit = ps.build_kernels(stm, interpret=interp)
-            self._scene_k = (stf, stm, top2, anyhit)
-        return self._scene_k
-
-    def _prefer_scene_shadow(self):
-        """Scenes with SDF composites or standalone matter SDFs shadow
-        through the table kernel (their marches run in VMEM); pure
-        analytic small scenes keep the straight-line codegen kernel."""
-        return bool(self.comp_solo) \
-            or any(not light for *_, light in self.sdf_singles)
-
-    def _prefer_scene_query(self):
-        """The table kernel carries the nearest/transition query only
-        for scenes that need it: march-bound content (SDF composites /
-        standalone SDFs) or large member populations.  Small
-        all-analytic scenes (wine_glass, diamond) keep the pure-XLA
-        query, which fuses INTO the drain step's single XLA program —
-        a pallas_call boundary there costs more than it saves."""
-        if self.comp_solo or self.sdf_singles:
-            return True
-        n_members = len(self.single_rows) \
-            + sum(len(g) for g in self.comp_groups)
-        return n_members > 192
-
-    def _sdf_normal_dyn(self, kind, prm, m, ql, neg):
-        """Forward-difference SDF gradient normal with PER-RAY frames
-        (the outside-kernel winner reconstruction of the scene kernel;
-        mirrors _sdf_normal, reference src/objects.c:940-952)."""
-        dt = self.dtype
-        eps = self.eps
-        hi = jax.lax.Precision.HIGHEST
-        d0 = _sdf_eval(kind, prm, ql)
-        ex = jnp.asarray(np.eye(3, dtype=dt))
-        grad = jnp.stack([
-            (_sdf_eval(kind, prm, ql + ex[i] * eps) - d0) / eps
-            for i in range(3)], axis=-1)
-        nor = _norm3(jnp.einsum("...i,...ij->...j", grad, m, precision=hi))
-        return -nor if neg else nor
-
-    def _decode_scene(self, st, t12, c12, p, d):
-        """Decode the kernel's packed (shape, member, leaf) winner codes
-        into unified rows / object ids / SDF winner normals."""
-        dt = self.dtype
-        fin = jnp.isfinite(t12)
-        code = jnp.where(fin, c12, -1)
-        shp = code >> 24
-        member = (code >> 8) & 0xFFFF
-        leaf = code & 0xFF
-        rows = jnp.full(code.shape, -1, jnp.int32)
-        oid = jnp.full(code.shape, -1, jnp.int32)
-        nor = jnp.zeros(code.shape + (3,), dt)
-        t_safe = jnp.where(fin, t12, 0.0)
-        x = p[:, None, :] + d[:, None, :] * t_safe[..., None]
-        hi = jax.lax.Precision.HIGHEST
-        for sh in st.shapes:
-            m = (shp == sh.shape_id) & (code >= 0)
-            midx = jnp.clip(member, 0, len(sh.oid) - 1)
-            idxf = jnp.clip(member * sh.Lc + leaf, 0,
-                            len(sh.rows_flat) - 1)
-            rows = jnp.where(m, jnp.asarray(sh.rows_flat)[idxf], rows)
-            oid = jnp.where(m, jnp.asarray(sh.oid)[midx], oid)
-            for (li, kind, cycles, neg) in sh.sdf_slots:
-                sel = m & (leaf == li)
-                mm = jnp.asarray(sh.sdf_m[li].astype(dt))[midx]
-                mm0 = jnp.asarray(sh.sdf_m0[li].astype(dt))[midx]
-                prm = jnp.asarray(sh.sdf_prm[li].astype(dt))[midx]
-                ql = jnp.einsum("...ij,...j->...i", mm, x,
-                                precision=hi) + mm0
-                nli = self._sdf_normal_dyn(kind, prm, mm, ql, neg)
-                nor = jnp.where(sel[..., None], nli, nor)
-        return rows, oid, nor
-
-    def _single_chunks(self, matter_only, R=None, exclude_big=False):
+    def _single_chunks(self, matter_only, R=None):
         """Static chunk partition of candidate rows (single-leaf objects).
 
         With R (the ray-batch width, static under jit) the chunk length is
@@ -1779,14 +1606,10 @@ class Tracer:
         bounded (~32M elements) for ANY rays x leaves product — scenes like
         many_spheres (~32k leaves) hit the tracer with R up to B*S NEE
         shadow rays and would otherwise materialize GB-scale temps
-        (RESOURCE_EXHAUSTED on a real chip).
-
-        exclude_big drops the rows covered by the big-scene kernel."""
+        (RESOURCE_EXHAUSTED on the device)."""
         rows = self.single_rows
         if matter_only and len(rows):
             rows = rows[~self.tab.is_light[rows]]
-        if exclude_big and len(self.big_rows):
-            rows = np.setdiff1d(rows, self.big_rows)
         c = CHUNK
         if R:
             c = int(min(CHUNK, max(64, (1 << 23) // max(R, 1))))
@@ -1816,90 +1639,46 @@ class Tracer:
         tabs = self._assemble()
         kw = 2 if want2 else 1
 
-        # 0. packed scene kernel: ONE launch carries singles + grouped
-        # composites + SDF solo clusters as a global top-2; only the
-        # oversized leftovers and the big-scene population remain for
-        # the XLA columns below
-        use_big = self._bigscene_ok()
-        use_scene = self._scene_ok() and self._prefer_scene_query()
-        stf = None
-        if use_scene:
-            stf, _stm, scene_top2, _ah = self._scene_kernels()
-            use_scene = scene_top2 is not None
+        # 1. single-leaf objects: chunked running top-k merge
+        best_t = jnp.full((R, kw), INF, dt)
+        best_row = jnp.zeros((R, kw), jnp.int32)
+        for rows in self._single_chunks(matter_only, R):
+            a = self._chunk_candidates(tabs, rows, p, d)
+            if lane_matter is not None \
+                    and self.tab.is_light[rows].any():
+                lmask = jnp.asarray(self.tab.is_light[rows])
+                a = jnp.where(lane_matter[:, None] & lmask[None, :],
+                              INF, a)
+            if want2:
+                tkc, ikc = _top2_cols(a)
+            else:
+                ikc = jnp.argmin(a, axis=1).astype(jnp.int32)[:, None]
+                tkc = jnp.min(a, axis=1)[:, None]
+            if len(rows) <= 64:
+                rows_f = jnp.asarray(rows, dt)
+                oh = ikc[..., None] == jnp.arange(len(rows),
+                                                  dtype=jnp.int32)
+                rkc = jnp.sum(jnp.where(oh, rows_f, 0),
+                              -1).astype(jnp.int32)
+            else:
+                rkc = jnp.asarray(rows)[ikc]
+            cand_t = jnp.concatenate([best_t, tkc], axis=1)
+            cand_r = jnp.concatenate([best_row, rkc], axis=1)
+            if want2:
+                best_t, sel = _top2_cols(cand_t)
+            else:
+                sel = jnp.argmin(cand_t, axis=1)[:, None]
+                best_t = jnp.min(cand_t, axis=1)[:, None]
+            best_row = _take_cols(cand_r, sel)
 
-        cols_t = []
-        cols_row = []
+        # 2. final candidate columns: the kw single winners + one
+        # column per composite + one per standalone SDF object
+        cols_t = [best_t[:, i] for i in range(kw)]
+        cols_row = [best_row[:, i] for i in range(kw)]
         oid_special = []  # (col, const oid) for SDF-surface winners
         nor_ovr = []      # (col, [R,3]) explicit normals (SDF surfaces)
 
-        if use_scene:
-            if use_big:
-                _, top2, _, rows_padded = self._bigscene()
-                t2k, gik = top2(p, d)
-                for j in range(kw):
-                    cols_t.append(t2k[:, j].astype(dt))
-                    cols_row.append(jnp.asarray(rows_padded)[gik[:, j]])
-            if matter_only:
-                lmf = jnp.ones((R,), dt)
-            elif lane_matter is not None:
-                lmf = lane_matter.astype(dt)
-            else:
-                lmf = jnp.zeros((R,), dt)
-            t12k, c12k = scene_top2(p, d, lmf)
-            rowk, oidk, nork = self._decode_scene(stf, t12k, c12k, p, d)
-            for j in (0, 1):
-                k = len(cols_t)
-                cols_t.append(t12k[:, j])
-                cols_row.append(rowk[:, j])
-                oid_special.append((k, oidk[:, j]))
-                nor_ovr.append((k, nork[:, j]))
-        else:
-            # 1. single-leaf objects: big-scene kernel seed + chunked
-            # running top-k merge over the remaining rows
-            best_t = jnp.full((R, kw), INF, dt)
-            best_row = jnp.zeros((R, kw), jnp.int32)
-            if use_big:
-                _, top2, _, rows_padded = self._bigscene()
-                t2k, gik = top2(p, d)
-                best_t = t2k[:, :kw].astype(dt)
-                best_row = jnp.asarray(rows_padded)[gik[:, :kw]]
-            for rows in self._single_chunks(matter_only, R,
-                                            exclude_big=use_big):
-                a = self._chunk_candidates(tabs, rows, p, d)
-                if lane_matter is not None \
-                        and self.tab.is_light[rows].any():
-                    lmask = jnp.asarray(self.tab.is_light[rows])
-                    a = jnp.where(lane_matter[:, None] & lmask[None, :],
-                                  INF, a)
-                if want2:
-                    tkc, ikc = _top2_cols(a)
-                else:
-                    ikc = jnp.argmin(a, axis=1).astype(jnp.int32)[:, None]
-                    tkc = jnp.min(a, axis=1)[:, None]
-                if len(rows) <= 64:
-                    rows_f = jnp.asarray(rows, dt)
-                    oh = ikc[..., None] == jnp.arange(len(rows),
-                                                      dtype=jnp.int32)
-                    rkc = jnp.sum(jnp.where(oh, rows_f, 0),
-                                  -1).astype(jnp.int32)
-                else:
-                    rkc = jnp.asarray(rows)[ikc]
-                cand_t = jnp.concatenate([best_t, tkc], axis=1)
-                cand_r = jnp.concatenate([best_row, rkc], axis=1)
-                if want2:
-                    best_t, sel = _top2_cols(cand_t)
-                else:
-                    sel = jnp.argmin(cand_t, axis=1)[:, None]
-                    best_t = jnp.min(cand_t, axis=1)[:, None]
-                best_row = _take_cols(cand_r, sel)
-
-            # 2. final candidate columns: the kw single winners + one
-            # column per composite + one per standalone SDF object
-            cols_t += [best_t[:, i] for i in range(kw)]
-            cols_row += [best_row[:, i] for i in range(kw)]
-
-        groups_iter = stf.rest_groups if use_scene else self.comp_groups
-        for members in groups_iter:
+        for members in self.comp_groups:
             mf = [c for c in members if not (matter_only and c.is_light)]
             if not mf:
                 continue
@@ -1919,8 +1698,6 @@ class Tracer:
         pair_out = {}          # first member id -> cluster top-2 columns
         pair_skip = set()      # other members of pair-compacted clusters
         for cluster in self._solo_clusters():
-            if use_scene and id(cluster[0]) in stf.covered_solo_ids:
-                continue
             if len(cluster) < 2 or (matter_only and cluster[0].is_light):
                 continue
             if self._pairs_ok(cluster):
@@ -1933,8 +1710,6 @@ class Tracer:
                 solo_out[id(comp)] = (a_g[gi], row_g[gi], nor_g[gi])
 
         for comp in self.comp_solo:
-            if use_scene and id(comp) in stf.covered_solo_ids:
-                continue
             if matter_only and comp.is_light:
                 continue
             p8 = pair_out.pop(id(comp), None)
@@ -1947,8 +1722,7 @@ class Tracer:
                 # later non-cluster column can pick a different winner
                 # than the member-scanned form.  Accepted: pair
                 # compaction is off on the CPU golden path
-                # (_pair_compact_on), and the TPU-f32 corpus pins the
-                # compacted order (tests/golden_tpu_hashes.json).
+                # (_pair_compact_on), whose hashes pin the scanned order.
                 for a_c, row_c, oid_c, nor_c in (p8[0:4], p8[4:8]):
                     if lane_matter is not None and comp.is_light:
                         a_c = jnp.where(lane_matter, INF, a_c)
@@ -1994,8 +1768,6 @@ class Tracer:
 
         for si, (lf, oid, env_c, env_r, light) in \
                 enumerate(self.sdf_singles):
-            if use_scene and si in stf.covered_sdf_idx:
-                continue
             if matter_only and light:
                 continue
             a, nor = self._hit_sdf_leaf(lf, env_c, env_r, p, d, si=si)
@@ -2018,9 +1790,9 @@ class Tracer:
         row12 = _take_cols(ROWS, sel)                      # [R, kw]
 
         # 3. winner normals + oid from the unified table: ONE packed
-        # parameter-matrix lookup for the kw winners (one-hot matmul for
-        # small tables — TPU gathers run at ~4 GB/s, the matmul at full
-        # MXU rate), then the analytic gradient (2 c2 y + c1) M.
+        # parameter-matrix lookup for the kw winners (one-hot contraction
+        # for small tables, a gather for large ones), then the analytic
+        # gradient (2 c2 y + c1) M.
         M, m0, c2, c1, rr = tabs
         L = len(self.tab)
         t_safe = jnp.where(jnp.isfinite(t12), t12, 0.0)
@@ -2152,84 +1924,19 @@ class Tracer:
 
     # -- shadow queries ------------------------------------------------------
 
-    def _pallas_ok(self):
-        """Fused Pallas kernels apply only on the plain TPU forward path:
-        no traced geometry overrides (diff mode needs AD through the XLA
-        formulas) and a real TPU backend."""
-        if self.ovr or self.diff or not getattr(self, "use_pallas", True):
-            return False
-        # the kernels bake every leaf as straight-line code; very large
-        # scenes (many_spheres: ~1.4k leaves) would explode compile time,
-        # and their chunked XLA path is already matmul-shaped
-        if len(self.tab) > 192:
-            return False
-        import jax as _jax
-        return _jax.default_backend() != "cpu"
-
     def shadow_blocked(self, p, d, limit):
         """True where ANY matter hit lies within (.., limit] — the NEE
         shadow test `compound_s_ray_hit(matter) > a` (reference
         src/scene.c:571) as a cheap any-hit reduction: no top-2 merge, no
-        normals, no winner reconstruction.  On TPU the analytic scene
-        subset runs as one fused Pallas kernel (pallas_kernels.py)."""
+        normals, no winner reconstruction."""
         dt = self.dtype
         p = jnp.asarray(p, dt)
         d = jnp.asarray(d, dt)
         R = p.shape[0]
         limit = jnp.asarray(limit, dt)
-        # scenes whose shadow cost is march/cluster-bound route through
-        # the packed table kernel; small all-analytic scenes keep the
-        # straight-line codegen kernel below
-        if self._scene_ok() and self._prefer_scene_shadow():
-            _stf, stm, _t2, anyhit = self._scene_kernels()
-            blocked = (anyhit(p, d, limit) if anyhit is not None
-                       else jnp.zeros((R,), bool))
-            if self._bigscene_ok():
-                _, _, bh, _ = self._bigscene()
-                blocked = blocked | bh(p, d, limit)
-            tabs = self._assemble()
-            for mf in stm.rest_groups:
-                a_g, _ = self._group_hit(mf, tabs, p, d)
-                blocked = blocked | jnp.any(a_g <= limit[:, None], axis=1)
-            for cluster in self._shape_clusters(stm.rest_solos):
-                if len(cluster) >= 2:
-                    blocked = blocked | self._solo_cluster_shadow(
-                        cluster, tabs, p, d, limit)
-                else:
-                    blocked = blocked | self._shadow_composite(
-                        cluster[0], tabs, p, d, limit)
-            return blocked
-        if self._pallas_ok():
-            if not hasattr(self, "_shadow_kernel"):
-                from actinon_tpu.render import pallas_kernels as pk
-                self._shadow_kernel = pk.build_shadow_kernel(self)
-            fn, rest = self._shadow_kernel
-            blocked = fn(p, d, limit)
-            if rest or self.sdf_singles:
-                tabs = self._assemble()
-                # shape-identical rest composites (e.g. many identical
-                # SDF lamps) evaluate as ONE scanned body, mirroring the
-                # non-Pallas path's solo-cluster scan
-                for cluster in self._shape_clusters(rest):
-                    if len(cluster) >= 2:
-                        blocked = blocked | self._solo_cluster_shadow(
-                            cluster, tabs, p, d, limit)
-                    else:
-                        blocked = blocked | self._shadow_composite(
-                            cluster[0], tabs, p, d, limit)
-                for lf, oid, env_c, env_r, light in self.sdf_singles:
-                    if light:
-                        continue
-                    a, _ = self._hit_sdf_leaf(lf, env_c, env_r, p, d)
-                    blocked = blocked | (a <= limit)
-            return blocked
         tabs = self._assemble()
         blocked = jnp.zeros((R,), bool)
-        use_big = self._bigscene_ok()
-        if use_big:
-            _, _, anyhit, _ = self._bigscene()
-            blocked = anyhit(p, d, limit)
-        for rows in self._single_chunks(True, R, exclude_big=use_big):
+        for rows in self._single_chunks(True, R):
             a = self._chunk_candidates(tabs, rows, p, d)
             blocked = blocked | jnp.any(a <= limit[:, None], axis=1)
         for members in self.comp_groups:
@@ -2265,18 +1972,6 @@ class Tracer:
         dt = self.dtype
         p = jnp.asarray(p, dt)
         d = jnp.asarray(d, dt)
-        # TPU: straight-line codegen kernel for analytic objects — the
-        # NEE loop calls this per sample chunk, and the XLA composite
-        # walk was a large share of hanging_lamp's NEE block
-        if self._scene_ok() or self._pallas_ok():
-            if not hasattr(self, "_objhit_k"):
-                self._objhit_k = {}
-            if oid not in self._objhit_k:
-                from actinon_tpu.render import pallas_kernels as pk
-                self._objhit_k[oid] = pk.build_object_hit_kernel(
-                    self, oid, interpret=self.use_scene_interpret)
-            if self._objhit_k[oid] is not None:
-                return self._objhit_k[oid](p, d)
         tabs = self._assemble()
         rows = np.flatnonzero((self.tab.oid == oid) & self.tab.single)
         if len(rows):

@@ -7,8 +7,9 @@ src/scene.c:537 and src/objects.c:269).  That per-position determinism is the
 reference's key reproducibility trick: re-rendering a pixel re-produces the
 same light samples.
 
-On TPU a mutable per-lane LCG state serializes the sampler, so we keep the
-*seeding scheme* (hash of the surface point) but replace the LCG stream with a
+In a vectorized wavefront a mutable per-lane LCG state serializes the
+sampler, so we keep the *seeding scheme* (hash of the surface point) but
+replace the LCG stream with a
 stateless counter-based generator: draw k of stream s is ``mix(s, k)`` where
 ``mix`` is a murmur3-style avalanche over uint32 lanes.  Fully vectorized,
 no cross-iteration dependency, identical reproducibility properties.

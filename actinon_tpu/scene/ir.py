@@ -1,7 +1,7 @@
 """Scene IR: the host object graph compiled to flat arrays + static CSG
 programs — the form the device tracer consumes.
 
-Design (tpu-first, SURVEY.md section 7): instead of the reference's
+Design (SURVEY.md section 7): instead of the reference's
 pointer-chasing object vtables (reference src/objects.c:202-241) and
 per-pair recursive marching (reference src/objects.c:1052-1094), every
 top-level scene object is flattened into
@@ -17,8 +17,7 @@ top-level scene object is flattened into
     becomes straight-line XLA code with no data-dependent dispatch.
 
 The leaf tables are struct-of-arrays so the tracer evaluates all leaves of
-one family in a single vectorized expression (quadric setup is einsum ->
-MXU work).
+one family in a single vectorized expression.
 """
 
 from __future__ import annotations

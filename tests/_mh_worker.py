@@ -22,16 +22,12 @@ jax.distributed.initialize(coordinator_address=addr,
 
 import numpy as np  # noqa: E402
 
-from actinon_tpu.acn.interp import run_file  # noqa: E402
+from actinon_tpu import scenes  # noqa: E402
 from actinon_tpu.parallel.mesh import make_mesh, ShardedIntegrator  # noqa: E402
 from actinon_tpu.render.tracer import Tracer  # noqa: E402
 from actinon_tpu.scene import ir as sir  # noqa: E402
 
-captured = []
-run_file("/root/reference/src_acn/wine_glass.acn",
-         render_fn=lambda sc, fn: captured.append(sc.clone()),
-         args=["-f"])
-sc = captured[0]
+sc = scenes.load("wine_glass")
 sc.cfg.image_width, sc.cfg.image_height = 16, 12
 sc.cfg.direct_samples = 3
 sc.cfg.path_samples = 0

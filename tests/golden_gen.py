@@ -1,8 +1,8 @@
 """Regenerate tests/golden_hashes.json: tiny deterministic renders of the
-whole reference scene corpus (the reference's own regression oracle is
-the per-pass image fold-hash, reference src/scene.c:141-146).
+benchmark scenes in scenes/ (the reference's own regression oracle is the
+per-pass image fold-hash, reference src/scene.c:141-146).
 
-Run on CPU:  python tests/golden_gen.py
+Run on CPU:  python tests/golden_gen.py [scene ...]
 Each entry records the fold-hash of the packed 8-bit image plus the mean
 radiance (a tolerance-friendly secondary signal)."""
 
@@ -20,84 +20,46 @@ jax.config.update("jax_enable_x64", True)
 
 import numpy as np
 
-# Scenes run from a DISPOSABLE COPY of the corpus: the reference scripts
-# write work-claim and output files next to their own source
-# (src_acn/diamond_video.acn:202-227 uses file_touch/file_rename), and
-# /root/reference must never be written.  The copy also guarantees a
-# clean claim state, so diamond_video deterministically renders frame 0.
-import shutil
-import tempfile
+from actinon_tpu.scenes import load
 
-_TMP = tempfile.mkdtemp(prefix="acn_corpus_")
-shutil.copytree("/root/reference/src_acn", os.path.join(_TMP, "src_acn"))
-REF = os.path.join(_TMP, "src_acn")
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                    "golden_hashes.json")
 
-# scene -> (entry file, width, height, direct, path, depth)
+# scene -> (width, height, direct, path, depth)
 # tiny configs: the oracle checks *regression*, not convergence
 CORPUS = {
-    "primitives": ("primitives.acn", 24, 18, 4, 0, 11),
-    "wine_glass": ("wine_glass.acn", 24, 18, 4, 0, 12),
-    "diamond": ("diamond.acn", 24, 18, 4, 0, 12),
-    "many_spheres": ("many_spheres.acn", 24, 18, 2, 0, 6),
-    "pyramid": ("pyramid.acn", 24, 18, 4, 0, 12),
-    "ruby_heart": ("ruby_heart.acn", 24, 18, 4, 0, 12),
-    "caustic_of_caustic": ("caustic_of_caustic.acn", 16, 12, 2, 2, 12),
-    "diamond_video": ("diamond_video.acn", 24, 18, 4, 0, 12),
-    "hanging_lamp": ("hanging_lamp/hanging_lamp.acn", 24, 18, 2, 0, 12),
-    "hanging_lamps_in_row": (
-        "hanging_lamps_in_row/hanging_lamps_in_row.acn", 24, 18, 2, 0, 12),
-    "paraffin_lamp": ("paraffin_lamp/paraffin_lamp.acn", 24, 18, 2, 0, 12),
-    "paraffin_lamp_on_ledge": (
-        "paraffin_lamp_on_ledge/paraffin_lamp_on_ledge.acn",
-        24, 18, 2, 0, 12),
+    "primitives": (24, 18, 4, 0, 11),
+    "wine_glass": (24, 18, 4, 0, 12),
+    "diamond": (24, 18, 4, 0, 12),
+    "many_spheres": (24, 18, 2, 0, 6),
+    "hanging_lamp": (24, 18, 2, 0, 12),
 }
 
 
-class _StopRender(Exception):
-    pass
-
-
 def render_one(name):
-    """Returns (hash, mean) for the FIRST create_image call of the scene
-    (diamond_video renders 90 frames; frame 0 is the oracle)."""
-    from actinon_tpu.acn.interp import run_file
+    """Returns (hash, mean) of the scene's first create_image call at
+    its tiny corpus config."""
     from actinon_tpu.render import image as aimg
     from actinon_tpu.render.integrator import Integrator
     from actinon_tpu.render.tracer import Tracer
     from actinon_tpu.scene import ir as sir
 
-    entry, w, h, direct, path, depth = CORPUS[name]
-    out = {}
-
-    def render_fn(sc, fname):
-        sc = sc.clone()
-        sc.cfg.image_width, sc.cfg.image_height = w, h
-        sc.cfg.direct_samples = direct
-        sc.cfg.path_samples = path
-        sc.cfg.trace_depth = depth
-        ir = sir.compile_scene(sc)
-        integ = Integrator(Tracer(ir, dtype=np.float32), batch=1 << 12)
-        ys, xs = np.mgrid[0:h, 0:w]
-        pos = np.stack([xs.reshape(-1) + 0.5, ys.reshape(-1) + 0.5],
-                       -1).astype(np.float64)
-        acc = integ.run_samples(pos)
-        sat = np.clip(np.power(np.maximum(acc, 0.0), sc.cfg.gamma),
-                      0.0, 1.0)
-        img = sat.reshape(h, w, 3)
-        out["hash"] = int(aimg.image_hash(aimg.pack_cps(img)))
-        out["mean"] = float(img.mean())
-        raise _StopRender()          # first frame only
-
-    try:
-        run_file(os.path.join(REF, entry), render_fn=render_fn,
-                 args=["-f"])
-    except _StopRender:
-        pass
-    if "hash" not in out:
-        raise RuntimeError(f"{name}: no create_image call reached")
-    return out
+    w, h, direct, path, depth = CORPUS[name]
+    sc = load(name)
+    sc.cfg.image_width, sc.cfg.image_height = w, h
+    sc.cfg.direct_samples = direct
+    sc.cfg.path_samples = path
+    sc.cfg.trace_depth = depth
+    ir = sir.compile_scene(sc)
+    integ = Integrator(Tracer(ir, dtype=np.float32), batch=1 << 12)
+    ys, xs = np.mgrid[0:h, 0:w]
+    pos = np.stack([xs.reshape(-1) + 0.5, ys.reshape(-1) + 0.5],
+                   -1).astype(np.float64)
+    acc = integ.run_samples(pos)
+    sat = np.clip(np.power(np.maximum(acc, 0.0), sc.cfg.gamma), 0.0, 1.0)
+    img = sat.reshape(h, w, 3)
+    return {"hash": int(aimg.image_hash(aimg.pack_cps(img))),
+            "mean": float(img.mean())}
 
 
 def main():
@@ -116,7 +78,7 @@ def main():
             golden[name]["seconds"] = round(time.time() - t0, 1)
             golden.pop(f"{name}__skipped", None)
         except Exception as e:
-            # record WHY a scene is absent (round-2 verdict: silent gaps)
+            # record WHY a scene is absent
             golden[f"{name}__skipped"] = \
                 f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
         # write incrementally: a timeout keeps the finished scenes

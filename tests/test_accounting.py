@@ -14,18 +14,14 @@ reference src/scene.c:420-667).
 import numpy as np
 import pytest
 
-from actinon_tpu.acn.interp import run_file
+from actinon_tpu import scenes
 from actinon_tpu.render.integrator import Integrator, RayQueue
 from actinon_tpu.render.tracer import Tracer
 from actinon_tpu.scene import ir as sir
 
 
 def _scene(path_samples):
-    captured = []
-    run_file("/root/reference/src_acn/wine_glass.acn",
-             render_fn=lambda sc, fn: captured.append(sc.clone()),
-             args=["-f"])
-    sc = captured[0]
+    sc = scenes.load("wine_glass")
     sc.cfg.image_width, sc.cfg.image_height = 16, 12
     sc.cfg.direct_samples = 3
     sc.cfg.path_samples = path_samples

@@ -1,5 +1,5 @@
 """Tests of the .acn language front-end: lexer, evaluator, operator model,
-containers, closures, and the reference scene corpus (SURVEY.md section 2.8)."""
+containers, closures, and the benchmark scenes (SURVEY.md section 2.8)."""
 
 import os
 
@@ -7,12 +7,11 @@ import numpy as np
 import pytest
 
 from actinon_tpu.acn.interp import AcnError, run_file, run_source
+from actinon_tpu.scenes import scene_path
 from actinon_tpu.scene.objects import (
     ArrS, Compound, MapS, Neg, PairInside, PairOutside, Plane, ScaleWrap,
     Sphere, Squaroid,
 )
-
-REF = "/root/reference/src_acn"
 
 
 def ev(src, **kw):
@@ -298,17 +297,14 @@ def test_file_ops(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# scene corpus (the reference's integration suite, SURVEY.md section 4)
+# benchmark scenes (the integration suite, SURVEY.md section 4)
 
 CORPUS = [
-    ("primitives.acn", 1, 8),
-    ("wine_glass.acn", 1, 3),
-    ("diamond.acn", 1, 9),
-    ("pyramid.acn", 1, 36),
-    ("ruby_heart.acn", 2, 43),
-    ("caustic_of_caustic.acn", 1, 5),
-    ("hanging_lamp/hanging_lamp.acn", 1, 124),
-    ("paraffin_lamp/paraffin_lamp.acn", 1, 12),
+    ("primitives", 1, 7),
+    ("wine_glass", 1, 3),
+    ("diamond", 1, 4),
+    ("many_spheres", 1, 1366),
+    ("hanging_lamp", 1, 63),
 ]
 
 
@@ -320,6 +316,6 @@ def test_corpus_builds(scene, nlight, nmatter):
         captured.append((len(sc.light.leaf_objects()),
                          len(sc.matter.leaf_objects())))
 
-    run_file(os.path.join(REF, scene), render_fn=render_fn, args=["-f"])
+    run_file(scene_path(scene), render_fn=render_fn, args=["-f"])
     assert captured, "scene never called create_image"
     assert captured[0] == (nlight, nmatter)

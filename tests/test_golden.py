@@ -4,9 +4,10 @@ The reference's own regression mechanism is the per-pass fold-hash of the
 packed 8-bit image (reference src/scene.c:141-146, printed each pass at
 src/scene.c:881): with deterministic position-seeded RNG a scene renders
 bit-identically, so the hash is a full-image check.  This suite renders
-every corpus scene at a tiny deterministic config and compares the hash
-(exact) and the mean radiance (tolerance-friendly secondary signal)
-against tests/golden_hashes.json (regenerate with tests/golden_gen.py).
+every benchmark scene in scenes/ at a tiny deterministic config on the
+CPU and compares the hash (exact) and the mean radiance
+(tolerance-friendly secondary signal) against tests/golden_hashes.json
+(regenerate with tests/golden_gen.py).
 
 A one-pixel change anywhere in the render stack fails the hash compare.
 """
@@ -29,13 +30,12 @@ with open(GOLDEN_PATH) as f:
 
 # the full corpus is rendered by default; mark the slowest scenes so a
 # quick pass (-m "not slow_golden") still covers every subsystem
-SLOW = {"caustic_of_caustic", "hanging_lamp", "hanging_lamps_in_row",
-        "many_spheres", "paraffin_lamp", "paraffin_lamp_on_ledge"}
+SLOW = {"hanging_lamp", "many_spheres"}
 
 
 def test_golden_covers_corpus():
     """Every corpus scene must have a recorded golden entry (or a
-    documented skip reason) — silent gaps were a round-2 defect."""
+    documented skip reason)."""
     missing = [n for n in CORPUS
                if n not in GOLDEN and f"{n}__skipped" not in GOLDEN]
     assert not missing, f"no golden entry for: {missing}"

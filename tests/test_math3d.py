@@ -115,3 +115,18 @@ def test_saturate_color():
     c = np.array([[0.25, 1.5, -0.1]])
     out = np.asarray(m3.saturate_color(c, 0.5))
     np.testing.assert_allclose(out, [[0.5, 1.0, 0.0]], atol=1e-12)
+
+
+@pytest.mark.parametrize("sample", [m3.sphere_cap_sample,
+                                    m3.sphere_belt_sample])
+def test_cap_sample_gradient_finite_at_degenerate_height(sample):
+    """A cap thinner than the f32 spacing at 1 (a small light far away)
+    gives z == 1 exactly; the gradient must stay finite there."""
+    import jax
+
+    def f(h):
+        return sample(jnp.float32(0.3), jnp.float32(0.5), h).sum()
+
+    for h in (1e-9, 0.0):
+        g = jax.grad(f)(jnp.float32(h))
+        assert np.isfinite(np.asarray(g))

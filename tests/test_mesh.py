@@ -6,7 +6,7 @@ pmax loop condition crosses devices)."""
 import numpy as np
 import pytest
 
-from actinon_tpu.acn.interp import run_file
+from actinon_tpu import scenes
 from actinon_tpu.parallel.mesh import make_mesh, ShardedIntegrator
 from actinon_tpu.render.integrator import Integrator
 from actinon_tpu.render.tracer import Tracer
@@ -14,11 +14,7 @@ from actinon_tpu.scene import ir as sir
 
 
 def _scene(width=20, height=16, direct=3, depth=6):
-    captured = []
-    run_file("/root/reference/src_acn/wine_glass.acn",
-             render_fn=lambda sc, fn: captured.append(sc.clone()),
-             args=["-f"])
-    sc = captured[0]
+    sc = scenes.load("wine_glass")
     sc.cfg.image_width, sc.cfg.image_height = width, height
     sc.cfg.direct_samples = direct
     sc.cfg.path_samples = 0

@@ -1,7 +1,7 @@
 """Multi-host (multi-process) sharded rendering: a 2-process
 jax.distributed CPU cluster with 2 virtual devices per process renders
 over a 4-device global `rays` mesh — the pod-scale path (sample blocks
-over DCN across hosts) exercised without TPU hardware, per SURVEY.md
+across hosts) exercised without accelerator hardware, per SURVEY.md
 section 4 "multi-node testing without a cluster".
 
 The reference's multi-machine story is frame-level sharding over a
@@ -61,16 +61,12 @@ def test_two_process_render(tmp_path):
     np.testing.assert_array_equal(acc0, acc1)
 
     # and it matches a single-process render of the same scene
-    from actinon_tpu.acn.interp import run_file
+    from actinon_tpu import scenes
     from actinon_tpu.render.integrator import Integrator
     from actinon_tpu.render.tracer import Tracer
     from actinon_tpu.scene import ir as sir
 
-    captured = []
-    run_file("/root/reference/src_acn/wine_glass.acn",
-             render_fn=lambda sc, fn: captured.append(sc.clone()),
-             args=["-f"])
-    sc = captured[0]
+    sc = scenes.load("wine_glass")
     sc.cfg.image_width, sc.cfg.image_height = 16, 12
     sc.cfg.direct_samples = 3
     sc.cfg.path_samples = 0

@@ -1,5 +1,5 @@
 """Device tracer vs. the scalar host oracle: nearest hits over randomized
-rays on synthetic objects and real corpus scenes."""
+rays on synthetic objects and the benchmark scenes."""
 
 import numpy as np
 import pytest
@@ -10,9 +10,7 @@ from actinon_tpu.scene.objects import (
     Squaroid, make_torus, rot_y, v3,
 )
 from actinon_tpu.render.tracer import Tracer
-from actinon_tpu.acn.interp import run_file
-
-REF = "/root/reference/src_acn"
+from actinon_tpu import scenes
 
 
 def ray_batch(n=300, seed=0, spread=6.0):
@@ -123,17 +121,9 @@ def _m(o, vec):
 
 # --- corpus scenes ---------------------------------------------------------
 
-CORPUS_SCENES = ["primitives.acn", "wine_glass.acn", "diamond.acn",
-                 "caustic_of_caustic.acn"]
-
-
-@pytest.mark.parametrize("scene_file", CORPUS_SCENES)
-def test_corpus_tracer_vs_oracle(scene_file):
-    captured = []
-    run_file(f"{REF}/{scene_file}",
-             render_fn=lambda sc, fn: captured.append(sc.clone()),
-             args=["-f"])
-    sc = captured[0]
+@pytest.mark.parametrize("scene_name", scenes.NAMES)
+def test_corpus_tracer_vs_oracle(scene_name):
+    sc = scenes.load(scene_name)
     ir = sir.compile_scene(sc)
     tr = Tracer(ir, dtype=np.float64)
 
@@ -162,3 +152,24 @@ def test_corpus_tracer_vs_oracle(scene_file):
                 abs(t[i] - best) > 1e-4 * (1 + abs(best)):
             mismatch += 1
     assert mismatch <= max(2, 0.02 * n), f"{mismatch}/{n} disagree"
+
+
+def test_sphere_light_hit_from_far_away_f32():
+    """An f32 ray from ~5500 units away hits a unit sphere light on its
+    surface (the NEE light intersection divides by the squared distance
+    from the hit to the light's center)."""
+    import jax.numpy as jnp
+    from actinon_tpu.render.tracer import _sphere_first_hit
+
+    c = np.float32([-4, -5, 10])
+    p = np.float32([1079.8157, 5435.8257, 0.0])
+    rng = np.random.default_rng(0)
+    d = (c - p)[None] + rng.normal(0, 0.3, (200, 3))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    pb = np.broadcast_to(p, d.shape).astype(np.float32)
+    a = np.asarray(_sphere_first_hit(jnp.asarray(c), jnp.float32(1.0),
+                                     jnp.asarray(pb), jnp.asarray(d), 0.0))
+    hit = np.isfinite(a)
+    assert hit.sum() > 100
+    h = pb[hit].astype(np.float64) + d[hit] * a[hit, None]
+    assert np.abs(np.linalg.norm(h - c, axis=-1) - 1.0).max() < 1e-2
